@@ -1,9 +1,9 @@
-// Native host ingest runtime for gnss_sdr_tpu.
+// Native host ingest runtime for gnss_sdr.
 //
-// TPU-native equivalent of the reference's native layer: librtlsdr /
+// Equivalent of the reference's native layer: librtlsdr /
 // libSoapySDR FFI + reader thread + SPSC ring
 // (reference: src/rtlsdr_wrapper.rs, src/sdr_store/sdr_thread.rs:9-37,
-// src/rf/samples_buffer.rs). TPUs cannot talk USB, so the native layer's
+// src/rf/samples_buffer.rs). Accelerators cannot talk USB, so the native layer's
 // job here is the host-side data plane: wire-format conversion
 // (int8 real / interleaved IQ -> planar f32), a lock-free single
 // producer / single-consumer byte ring, and a background file/FIFO

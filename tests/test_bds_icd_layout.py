@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.nav import bds_d1 as d1
+from gnss_sdr.nav import bds_d1 as d1
 
 # ICD table 5-4..5-8 absolute positions: name -> list of (start, nbits)
 # MSB part first. Positions are 1-based bit numbers within the 300-bit

@@ -3,10 +3,10 @@ stream exactly as the uninterrupted one (no reference counterpart —
 SURVEY.md section 5 lists checkpointing as absent upstream)."""
 import numpy as np
 
-from gnss_sdr_tpu.config import ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import SatelliteScenario, synthesize
-from gnss_sdr_tpu.receiver import ArraySource, Receiver
-from gnss_sdr_tpu.utils import checkpoint
+from gnss_sdr.config import ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import SatelliteScenario, synthesize
+from gnss_sdr.receiver import ArraySource, Receiver
+from gnss_sdr.utils import checkpoint
 
 FS = 2_048_000.0
 

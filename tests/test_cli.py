@@ -3,7 +3,7 @@ import json
 
 import pytest
 
-from gnss_sdr_tpu.cli import main
+from gnss_sdr.cli import main
 
 
 def test_synthetic_scene_json(capsys):
@@ -18,7 +18,7 @@ def test_synthetic_scene_json(capsys):
 def test_config_file_run(tmp_path, capsys):
     import numpy as np
 
-    from gnss_sdr_tpu.models import SatelliteScenario, synthesize_real_if_int8
+    from gnss_sdr.models import SatelliteScenario, synthesize_real_if_int8
 
     fs, f_if = 2_046_000.0, 511_500.0
     raw = synthesize_real_if_int8(
@@ -54,10 +54,10 @@ n_channels = 4
 
 
 def test_missing_file_path_errors():
-    import gnss_sdr_tpu.config as cfg_mod
+    import gnss_sdr.config as cfg_mod
 
     with pytest.raises(SystemExit, match="path required"):
-        from gnss_sdr_tpu.cli import build_source
+        from gnss_sdr.cli import build_source
 
         build_source(cfg_mod.ReceiverConfig(
             sdr=cfg_mod.SdrConfig(driver="file", path="")

@@ -10,7 +10,7 @@ structural gates.
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.models.codes import beidou_b1i, galileo_e1, glonass_l1of, gps_l1ca
+from gnss_sdr.models.codes import beidou_b1i, galileo_e1, glonass_l1of, gps_l1ca
 
 # IS-GPS-200 table 3-I: first 10 chips of each C/A code, octal.
 FIRST10_OCTAL = [

@@ -4,8 +4,8 @@ import dataclasses
 
 import pytest
 
-from gnss_sdr_tpu import config as cfg_mod
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, SdrConfig
+from gnss_sdr import config as cfg_mod
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, SdrConfig
 
 
 def test_defaults_match_reference_operating_points():
@@ -81,7 +81,7 @@ def test_toml_unknown_key_rejected(tmp_path):
 
 
 def test_ladder_presets_construct():
-    from gnss_sdr_tpu import presets
+    from gnss_sdr import presets
 
     assert presets.ladder1_single_sat_capture().acq.pad_fft
     assert presets.ladder2_eight_channel().track.n_channels == 8

@@ -6,16 +6,16 @@ sub-chip correlator tables), BeiDou B1I (2046 chips), GLONASS L1OF
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import TrackConfig
-from gnss_sdr_tpu.models import (
+from gnss_sdr.config import TrackConfig
+from gnss_sdr.models import (
     BEIDOU_B1I,
     GALILEO_E1B,
     GLONASS_L1OF,
     SatelliteScenario,
     synthesize,
 )
-from gnss_sdr_tpu.ops import pcps
-from gnss_sdr_tpu.receiver import tracking as trk
+from gnss_sdr.ops import pcps
+from gnss_sdr.receiver import tracking as trk
 
 
 def acquire_and_track(spec, fs, prn, doppler, n_int, n_prn,

@@ -7,8 +7,8 @@ import types
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.io import MockDevice, open_device
-from gnss_sdr_tpu.models import SatelliteScenario, synthesize
+from gnss_sdr.io import MockDevice, open_device
+from gnss_sdr.models import SatelliteScenario, synthesize
 
 
 class TestMockDevice:
@@ -186,8 +186,8 @@ class TestMockDevice:
     def test_device_feeds_receiver(self):
         """MockDevice as a Receiver source (the reference's hardware-mock
         pattern, SURVEY.md section 4)."""
-        from gnss_sdr_tpu.config import ReceiverConfig, RfConfig, TrackConfig
-        from gnss_sdr_tpu.receiver import Receiver
+        from gnss_sdr.config import ReceiverConfig, RfConfig, TrackConfig
+        from gnss_sdr.receiver import Receiver
 
         fs = 2_048_000.0
         sig = synthesize(

@@ -73,7 +73,7 @@ def test_two_process_time_sharded_acquisition(tmp_path):
 
     # merge the per-host shard events exactly as a multi-host deployment
     # would: halo regions must not double-report
-    from gnss_sdr_tpu import parallel
+    from gnss_sdr import parallel
 
     shards = [
         parallel.TimeShard(host_id=i, **{

@@ -3,8 +3,8 @@ nco_lut.rs; the decimator is new capability the reference left TODO)."""
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.models import GPS_L1CA, SatelliteScenario, synthesize
-from gnss_sdr_tpu.ops import frontend
+from gnss_sdr.models import GPS_L1CA, SatelliteScenario, synthesize
+from gnss_sdr.ops import frontend
 
 
 class TestDcRemoval:
@@ -135,7 +135,7 @@ class TestPulseBlanking:
         """Acquisition through impulsive interference: blanking restores
         detection (the reference's declared-but-unimplemented feature,
         frontend.rs:64)."""
-        from gnss_sdr_tpu.ops import pcps
+        from gnss_sdr.ops import pcps
 
         fs = 2_048_000.0
         n = GPS_L1CA.samples_per_code(fs)
@@ -166,8 +166,8 @@ class TestPulseBlanking:
         assert bool(r_blank.detected[7])
 
     def test_receiver_with_blanking_and_agc(self):
-        from gnss_sdr_tpu.config import ReceiverConfig, RfConfig, TrackConfig
-        from gnss_sdr_tpu.receiver import ArraySource, Receiver
+        from gnss_sdr.config import ReceiverConfig, RfConfig, TrackConfig
+        from gnss_sdr.receiver import ArraySource, Receiver
 
         fs = 2_048_000.0
         sig = 50.0 * synthesize(

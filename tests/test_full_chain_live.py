@@ -15,13 +15,13 @@ test (~2-3 min) and its strongest end-to-end statement.
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu import constants as C
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import SatelliteScenario
-from gnss_sdr_tpu.nav import encode_frames, encode_words
-from gnss_sdr_tpu.receiver import Receiver, SyntheticSource
+from gnss_sdr import constants as C
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import SatelliteScenario
+from gnss_sdr.nav import encode_frames, encode_words
+from gnss_sdr.receiver import Receiver, SyntheticSource
 
-from tests.test_pvt_end_to_end import RINEX_PATH, RX_TRUE, build_scene
+from test_pvt_end_to_end import RINEX_PATH, RX_TRUE, build_scene
 
 FS = 2_046_000.0
 CODE_RATE = 1.023e6
@@ -39,7 +39,7 @@ def _build_live_scene(eph_reps: int = 1):
     sats, t_ref = build_scene()
     t_ref = np.floor(t_ref / 6.0) * 6.0 + 5.5
     # rebuild geometry at the adjusted epoch
-    import tests.test_pvt_end_to_end as m
+    import test_pvt_end_to_end as m
 
     saved = m.build_scene
 
@@ -218,7 +218,7 @@ class TestStreamingOutputs:
     streaming rate')."""
 
     def test_rinex_obs_streamed_epochs(self, live_fix):
-        from gnss_sdr_tpu.nav import parse_obs_file
+        from gnss_sdr.nav import parse_obs_file
 
         rx, _, obs_path = live_fix
         header, epochs = parse_obs_file(str(obs_path))

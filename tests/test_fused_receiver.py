@@ -1,14 +1,14 @@
-"""Receiver-level integration of the fused pallas tracking kernel
+"""Receiver-level integration of the block tracking step
 (correlator='fused'): the full streaming pipeline — acquisition,
-handoff, block tracking with per-block exact-ledger re-anchor, nav
+handoff, block tracking with the device-resident ledger, nav
 telemetry, lifecycle — must behave like the scanned XLA path.
 (reference behavior: src/tracking/do_tracking.rs channel lifecycle)"""
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import GPS_L1CA, SatelliteScenario
-from gnss_sdr_tpu.receiver import Receiver, SyntheticSource
+from gnss_sdr.config import ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import GPS_L1CA, SatelliteScenario
+from gnss_sdr.receiver import Receiver, SyntheticSource
 
 FS = 2_046_000.0
 SCEN = [
@@ -126,29 +126,50 @@ class TestFusedReceiver:
     def test_period_wrap_replica_bounds(self):
         """Regression for the sampled-code-table clamp: a chip ledger
         anchored in the last samples of the code period must still get
-        a correctly anchored replica (a short table made dynamic_slice
+        a correctly anchored replica (a short table made the slice
         clamp silently — a whole-block power collapse whenever the
         ledger crossed the period wrap)."""
         import jax.numpy as jnp
-        from gnss_sdr_tpu.ops.pallas import track_block_fused as fused
-        from gnss_sdr_tpu.receiver import tracking as trk
+        from gnss_sdr.models import synthesize
+        from gnss_sdr.receiver import fused_runner as fr
+        from gnss_sdr.receiver import tracking as trk
         n0 = GPS_L1CA.samples_per_code(FS)
-        cfg = TrackConfig(n_channels=1, correlator="fused")
+        cfg = TrackConfig(n_channels=1, correlator="fused",
+                          interp_code=True)
         params = trk.TrackParams.create(cfg, GPS_L1CA, FS)
         codes = trk.make_sampled_code_table(GPS_L1CA, FS, 32,
                                             window=params.window)
-        wp = ((params.window + 63 + 127) // 128) * 128
         row = np.asarray(codes[11])
-        half, el_pad = 2, params.el_shift + 2
+        buf = 6 * n0
+        sig = synthesize([SatelliteScenario(prn=12, doppler_hz=0.0)],
+                         buf, FS, noise_std=0.1, seed=2)
+        sre = jnp.asarray(np.real(sig), jnp.float32)
+        sim = jnp.asarray(np.imag(sig), jnp.float32)
+        dc = GPS_L1CA.code_rate_hz / FS
         for anchor in (0, n0 // 2, n0 - 2, n0 - 1):
-            reps = np.asarray(fused.build_replicas(
-                codes[None, 11], None, None, params.el_shift, n0, wp,
-                n_drift=5, anchor=jnp.asarray([anchor], jnp.int32)))[0]
-            for d in range(5):
-                idx = anchor + n0 - el_pad - (d - half) + np.arange(wp)
-                assert idx.max() < len(row), (anchor, d)
-                np.testing.assert_array_equal(reps[d], row[idx],
-                                              err_msg=f"{anchor}/{d}")
+            # furthest table read: early replica (+el_shift) of the
+            # last window sample, one more for the interpolation
+            last = anchor + n0 + params.el_shift + params.window
+            assert last < len(row), anchor
+            cp = (anchor + 0.5) * dc
+            st = trk.start_channel(trk.init_state(1), 0, 11, 0.0, n0,
+                                   GPS_L1CA.code_rate_hz)
+            st = st._replace(
+                chip_int=jnp.asarray([int(cp)], jnp.int32),
+                chip_frac_u32=jnp.asarray(
+                    [int((cp - int(cp)) * 2**32)], jnp.uint32))
+            rows = codes[11][None]
+            ref_st, ref = trk.track_block(params, rows, st, sre, sim, 2)
+            got_st, got = fr.block_step(sre, sim, rows, st, 0,
+                                        params=params, t_epochs=2,
+                                        buf_len=buf)
+            for f in ("i_e", "i_p", "i_l", "q_p"):
+                np.testing.assert_allclose(
+                    np.asarray(getattr(got, f)),
+                    np.asarray(getattr(ref, f)), rtol=1e-4, atol=1e-3,
+                    err_msg=f"{anchor}/{f}")
+            np.testing.assert_array_equal(np.asarray(got_st.chip_int),
+                                          np.asarray(ref_st.chip_int))
 
     def test_long_run_power_and_bits(self):
         """Regression for the replica re-anchor runaway: with a per-

@@ -15,10 +15,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from gnss_sdr_tpu.config import TrackConfig
-from gnss_sdr_tpu.models import GPS_L1CA, SatelliteScenario, synthesize
-from gnss_sdr_tpu.receiver import fused_runner as fr
-from gnss_sdr_tpu.receiver import tracking as trk
+from gnss_sdr.config import TrackConfig
+from gnss_sdr.models import GPS_L1CA, SatelliteScenario, synthesize
+from gnss_sdr.receiver import fused_runner as fr
+from gnss_sdr.receiver import tracking as trk
 
 FS = 2_046_000.0
 N0 = GPS_L1CA.samples_per_code(FS)
@@ -52,7 +52,7 @@ class TestRunBlocks:
         sim = np.imag(sig).astype(np.float32)
 
         ft = fr.FusedTracker(params, cfg, GPS_L1CA, FS, codes_s, T,
-                             history + block, layout="direct")
+                             history + block)
 
         # reference: B x (run_block over a rolling window + rebase)
         st_ref = _mk_state(C)
@@ -103,9 +103,9 @@ class TestRunBlocks:
         """Receiver.run(scan_blocks=4) must produce the same tracking
         outcome as the per-block loop: same tracked set, same epoch
         counts, matching Doppler and telemetry trace lengths."""
-        from gnss_sdr_tpu import ReceiverConfig, RfConfig, TrackConfig
-        from gnss_sdr_tpu.config import AcqConfig
-        from gnss_sdr_tpu.receiver import Receiver, SyntheticSource
+        from gnss_sdr import ReceiverConfig, RfConfig, TrackConfig
+        from gnss_sdr.config import AcqConfig
+        from gnss_sdr.receiver import Receiver, SyntheticSource
 
         FS2 = 2_046_000.0
 
@@ -159,7 +159,7 @@ class TestRunBlocks:
                           SatelliteScenario(prn=2, doppler_hz=1100.0)],
                          total, FS, noise_std=0.2, seed=9)
         ft = fr.FusedTracker(params, cfg, GPS_L1CA, FS, codes_s, T,
-                             history + block, layout="direct")
+                             history + block)
         st = trk.init_state(C)
         st = trk.start_channel(st, 0, 0, 900.0, N0 + 11,
                                GPS_L1CA.code_rate_hz)

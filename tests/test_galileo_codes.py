@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.models.codes import galileo_e1 as gal
+from gnss_sdr.models.codes import galileo_e1 as gal
 
 
 @pytest.fixture
@@ -66,9 +66,9 @@ class TestLoadCodesHex:
         """A signal built from LOADED codes acquires through the
         BOC(1,1) PCPS path — proves the loader feeds the whole chain,
         so real ICD tables are drop-in."""
-        from gnss_sdr_tpu.config import AcqConfig
-        from gnss_sdr_tpu.models import get_signal
-        from gnss_sdr_tpu.receiver.acquisition import AcquisitionEngine
+        from gnss_sdr.config import AcqConfig
+        from gnss_sdr.models import get_signal
+        from gnss_sdr.receiver.acquisition import AcquisitionEngine
 
         spec = get_signal("galileo_e1b")
         fs = 8_184_000.0
@@ -98,9 +98,9 @@ class TestLoadCodesHex:
 
 class TestSurrogateStatusSurfaced:
     def test_receiver_summary_reports_code_status(self):
-        from gnss_sdr_tpu.config import (AcqConfig, ReceiverConfig,
+        from gnss_sdr.config import (AcqConfig, ReceiverConfig,
                                          RfConfig, TrackConfig)
-        from gnss_sdr_tpu.receiver import ArraySource, Receiver
+        from gnss_sdr.receiver import ArraySource, Receiver
 
         fs = 8_184_000.0
         with pytest.warns(UserWarning, match="SURROGATE"):

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.nav import glonass_nav as g
+from gnss_sdr.nav import glonass_nav as g
 
 # ICD 4.7 published check index sets (bit numbers within the string,
 # 1-based; bit 85 transmitted first). c_k is stored in bit k; the

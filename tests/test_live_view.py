@@ -11,11 +11,11 @@ import os
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import (AcqConfig, ReceiverConfig, RfConfig,
+from gnss_sdr.config import (AcqConfig, ReceiverConfig, RfConfig,
                                  TrackConfig)
-from gnss_sdr_tpu.models import SatelliteScenario
-from gnss_sdr_tpu.receiver import Receiver, SyntheticSource
-from gnss_sdr_tpu.utils.live import LiveView
+from gnss_sdr.models import SatelliteScenario
+from gnss_sdr.receiver import Receiver, SyntheticSource
+from gnss_sdr.utils.live import LiveView
 
 FS = 4_096_000.0
 TRUTH = [
@@ -95,7 +95,7 @@ class TestLiveView:
 
 class TestCliLiveFlags:
     def test_cli_live_png(self, tmp_path, capsys):
-        from gnss_sdr_tpu.cli import main
+        from gnss_sdr.cli import main
 
         png = tmp_path / "dash.png"
         rc = main(["--blocks", "4", "--live-png", str(png),

@@ -3,15 +3,15 @@ shared stream (BASELINE.md config ladder 4)."""
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import (
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import (
     BEIDOU_B1I,
     GALILEO_E1B,
     GLONASS_L1OF,
     GPS_L1CA,
     SatelliteScenario,
 )
-from gnss_sdr_tpu.receiver import (
+from gnss_sdr.receiver import (
     MultiConstellationReceiver,
     Receiver,
     SyntheticSource,

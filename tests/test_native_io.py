@@ -5,8 +5,8 @@ import ctypes
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.io import NativeFileSource, convert, native_available
-from gnss_sdr_tpu.io.native import load_library
+from gnss_sdr.io import NativeFileSource, convert, native_available
+from gnss_sdr.io.native import load_library
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native library not built"
@@ -103,9 +103,9 @@ class TestNativeFileSource:
 
     def test_feeds_full_receiver(self, tmp_path):
         """Native ingest -> Receiver end-to-end."""
-        from gnss_sdr_tpu.config import ReceiverConfig, RfConfig, TrackConfig
-        from gnss_sdr_tpu.models import SatelliteScenario, synthesize_real_if_int8
-        from gnss_sdr_tpu.receiver import Receiver
+        from gnss_sdr.config import ReceiverConfig, RfConfig, TrackConfig
+        from gnss_sdr.models import SatelliteScenario, synthesize_real_if_int8
+        from gnss_sdr.receiver import Receiver
 
         fs, f_if = 4_092_000.0, 1_023_000.0
         raw = synthesize_real_if_int8(

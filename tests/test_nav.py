@@ -12,8 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu import constants as C
-from gnss_sdr_tpu.nav import (
+from gnss_sdr import constants as C
+from gnss_sdr.nav import (
     BitSynchronizer,
     Ephemeris,
     EphemerisAssembler,
@@ -29,7 +29,7 @@ from gnss_sdr_tpu.nav import (
     select_ephemerides,
     solve_pvt,
 )
-from gnss_sdr_tpu.nav.bits import compute_parity
+from gnss_sdr.nav.bits import compute_parity
 
 RINEX_PATH = "/root/reference/src/test_data/BRDC00WRD_R_20233330000_01D_GN.rnx"
 
@@ -303,7 +303,7 @@ class TestBrdcDownload:
     def test_filename_matches_reference_bundle(self):
         import datetime
 
-        from gnss_sdr_tpu.nav import brdc_filename, brdc_url
+        from gnss_sdr.nav import brdc_filename, brdc_url
 
         # the reference's bundled file is day-of-year 333 of 2023
         day = datetime.date(2023, 11, 29)
@@ -315,7 +315,7 @@ class TestBrdcDownload:
 
         import pytest
 
-        from gnss_sdr_tpu.nav import fetch_brdc
+        from gnss_sdr.nav import fetch_brdc
 
         with pytest.raises(ConnectionError, match="local RINEX"):
             fetch_brdc(datetime.date(2023, 11, 29), str(tmp_path),
@@ -324,7 +324,7 @@ class TestBrdcDownload:
     def test_existing_file_short_circuits(self, tmp_path):
         import datetime
 
-        from gnss_sdr_tpu.nav import brdc_filename, fetch_brdc
+        from gnss_sdr.nav import brdc_filename, fetch_brdc
 
         day = datetime.date(2023, 11, 29)
         existing = tmp_path / brdc_filename(day)

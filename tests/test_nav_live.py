@@ -9,11 +9,11 @@ ephemeris broadcast in subframes 1-3 — all through the public API.
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import SatelliteScenario
-from gnss_sdr_tpu.nav import encode_frames, encode_words
-from gnss_sdr_tpu.receiver import Receiver, SyntheticSource
-from tests.test_nav import sample_ephemeris
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import SatelliteScenario
+from gnss_sdr.nav import encode_frames, encode_words
+from gnss_sdr.receiver import Receiver, SyntheticSource
+from test_nav import sample_ephemeris
 
 FS = 2_046_000.0
 

@@ -11,14 +11,14 @@ gate lives in tests/test_nav_live.py.
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import SatelliteScenario
-from gnss_sdr_tpu.models.constellation import (
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import SatelliteScenario
+from gnss_sdr.models.constellation import (
     BEIDOU_B1I, GALILEO_E1B, GLONASS_L1OF,
 )
-from gnss_sdr_tpu.nav import bds_d1, glonass_nav as gn, inav
-from gnss_sdr_tpu.receiver import Receiver, SyntheticSource
-from tests.test_nav_messages import (
+from gnss_sdr.nav import bds_d1, glonass_nav as gn, inav
+from gnss_sdr.receiver import Receiver, SyntheticSource
+from test_nav_messages import (
     beidou_ephemeris, galileo_ephemeris, glonass_ephemeris,
 )
 

@@ -8,8 +8,8 @@ arbitrary epoch phase, and noise.
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.nav import bds_d1, glonass_nav as gn, inav
-from gnss_sdr_tpu.nav.ephemeris import Ephemeris
+from gnss_sdr.nav import bds_d1, glonass_nav as gn, inav
+from gnss_sdr.nav.ephemeris import Ephemeris
 
 
 def galileo_ephemeris() -> Ephemeris:
@@ -211,7 +211,7 @@ class TestGlonassCodec:
 
 class TestGlonassOrbit:
     def test_propagation_stays_on_orbit(self):
-        from gnss_sdr_tpu.nav.orbits import glonass_satellite_position
+        from gnss_sdr.nav.orbits import glonass_satellite_position
 
         r = 25_508_000.0
         v = np.sqrt(3.986004418e14 / r)
@@ -226,7 +226,7 @@ class TestGlonassOrbit:
         assert clk == pytest.approx(-1e-6)
 
     def test_rk4_step_invariance(self):
-        from gnss_sdr_tpu.nav.orbits import glonass_satellite_position
+        from gnss_sdr.nav.orbits import glonass_satellite_position
 
         geph = glonass_ephemeris()
         p1, _, _ = glonass_satellite_position(geph, 11700.0 + 600.0)
@@ -239,9 +239,9 @@ class TestMixedPvt:
     def test_per_system_clock_columns(self):
         """Mixed GPS+Galileo solve recovers position when the two
         systems' pseudoranges carry different clock offsets."""
-        from gnss_sdr_tpu.nav.pvt import solve_pvt
-        from gnss_sdr_tpu.nav.orbits import satellite_position
-        from gnss_sdr_tpu import constants as C
+        from gnss_sdr.nav.pvt import solve_pvt
+        from gnss_sdr.nav.orbits import satellite_position
+        from gnss_sdr import constants as C
 
         rx = np.array([4_027_894.0, 307_045.7, 4_919_474.9])
         ephs, txs, prs = [], [], []

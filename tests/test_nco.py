@@ -1,7 +1,7 @@
 """Fixed-point NCO exactness properties (ops/nco.py)."""
 import numpy as np
 
-from gnss_sdr_tpu.ops import nco
+from gnss_sdr.ops import nco
 
 
 def test_phase_ramp_matches_integer_math():

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu import constants as C
-from gnss_sdr_tpu.nav import (
+from gnss_sdr import constants as C
+from gnss_sdr.nav import (
     NavigationFilter,
     RinexObsWriter,
     parse_obs_file,
@@ -48,8 +48,8 @@ class TestRinexObsWriter:
         'RINEX observables at streaming rate')."""
         if not os.path.exists(RINEX_PATH):
             pytest.skip("reference RINEX data absent")
-        import tests.conftest  # noqa: F401
-        from tests.test_pvt_end_to_end import build_solved
+        import conftest  # noqa: F401
+        from test_pvt_end_to_end import build_solved
 
         # reuse the already-validated solved-scene helper directly
         rx, sol, sats = build_solved()
@@ -102,7 +102,7 @@ class TestNavigationFilter:
         return series
 
     def test_filter_beats_snapshot(self):
-        from gnss_sdr_tpu.nav import solve_pvt
+        from gnss_sdr.nav import solve_pvt
 
         series = self._observable_series()
         ekf = NavigationFilter(sigma_pr=8.0)

@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from gnss_sdr_tpu.models import SatelliteScenario, synthesize
-from gnss_sdr_tpu.utils import (
+from gnss_sdr.models import SatelliteScenario, synthesize
+from gnss_sdr.utils import (
     StageTimer,
     acquisition_heatmap,
     plot_psd,
@@ -48,8 +48,8 @@ class TestPlots:
         assert p.exists() and p.stat().st_size > 10_000
 
     def test_receiver_dashboard_renders(self, tmp_path):
-        from gnss_sdr_tpu.config import ReceiverConfig, RfConfig, TrackConfig
-        from gnss_sdr_tpu.receiver import ArraySource, Receiver
+        from gnss_sdr.config import ReceiverConfig, RfConfig, TrackConfig
+        from gnss_sdr.receiver import ArraySource, Receiver
 
         fs = 2_048_000.0
         sig = synthesize(
@@ -100,10 +100,10 @@ class TestSpanObservableCadence:
         """VERDICT r3 weak #6: observables must keep their configured
         cadence inside multi-block spans (emission per in-span block),
         not silently degrade to once per span."""
-        from gnss_sdr_tpu.config import (AcqConfig, ReceiverConfig,
+        from gnss_sdr.config import (AcqConfig, ReceiverConfig,
                                          RfConfig, TrackConfig)
-        from gnss_sdr_tpu.models import SatelliteScenario, synthesize
-        from gnss_sdr_tpu.receiver import ArraySource, Receiver
+        from gnss_sdr.models import SatelliteScenario, synthesize
+        from gnss_sdr.receiver import ArraySource, Receiver
 
         fs = 2_046_000.0
         sig = synthesize(
@@ -114,8 +114,7 @@ class TestSpanObservableCadence:
             ReceiverConfig(
                 rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=fs),
                 acq=AcqConfig(engine="conv", steady_threshold=2),
-                track=TrackConfig(n_channels=4, correlator="fused",
-                                  fused_layout="mxu"),
+                track=TrackConfig(n_channels=4, correlator="fused"),
                 block_ms=20,
             ),
             ArraySource(sig, fs),

@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu import parallel
-from gnss_sdr_tpu.config import TrackConfig
-from gnss_sdr_tpu.models import GPS_L1CA, SatelliteScenario, synthesize
-from gnss_sdr_tpu.ops import pcps
-from gnss_sdr_tpu.receiver import tracking as trk
+from gnss_sdr import parallel
+from gnss_sdr.config import TrackConfig
+from gnss_sdr.models import GPS_L1CA, SatelliteScenario, synthesize
+from gnss_sdr.ops import pcps
+from gnss_sdr.receiver import tracking as trk
 
 FS = 2_048_000.0
 N = GPS_L1CA.samples_per_code(FS)  # 2048
@@ -177,11 +177,11 @@ class TestShardedReceiver:
         """Full Receiver with ParallelConfig(channel_axis=4) over the
         virtual device mesh produces the same results as unsharded —
         the receiver-level multi-chip determinism gate."""
-        from gnss_sdr_tpu.config import (
+        from gnss_sdr.config import (
             ParallelConfig, ReceiverConfig, RfConfig, TrackConfig,
         )
-        from gnss_sdr_tpu.models import SatelliteScenario, synthesize
-        from gnss_sdr_tpu.receiver import ArraySource, Receiver
+        from gnss_sdr.models import SatelliteScenario, synthesize
+        from gnss_sdr.receiver import ArraySource, Receiver
 
         fs = 2_048_000.0
         sats = [
@@ -219,10 +219,10 @@ class TestShardedReceiver:
             )
 
     def test_indivisible_channels_rejected(self):
-        from gnss_sdr_tpu.config import (
+        from gnss_sdr.config import (
             ParallelConfig, ReceiverConfig, TrackConfig,
         )
-        from gnss_sdr_tpu.receiver import ArraySource, Receiver
+        from gnss_sdr.receiver import ArraySource, Receiver
 
         with pytest.raises(ValueError, match="divisible"):
             Receiver(
@@ -238,10 +238,10 @@ class TestFusedOnMesh:
         4-device mesh must be BIT-IDENTICAL to the 1-device run — the
         kernel is pure data parallelism over channels
         (parallel.shard_fused_step)."""
-        from gnss_sdr_tpu.config import TrackConfig
-        from gnss_sdr_tpu.models import GPS_L1CA, SatelliteScenario, synthesize
-        from gnss_sdr_tpu.receiver import fused_runner as fr
-        from gnss_sdr_tpu.receiver import tracking as trk
+        from gnss_sdr.config import TrackConfig
+        from gnss_sdr.models import GPS_L1CA, SatelliteScenario, synthesize
+        from gnss_sdr.receiver import fused_runner as fr
+        from gnss_sdr.receiver import tracking as trk
 
         fs = 2_046_000.0
         n0 = GPS_L1CA.samples_per_code(fs)
@@ -268,12 +268,12 @@ class TestFusedOnMesh:
             return st
 
         ft1 = fr.FusedTracker(params, cfg, GPS_L1CA, fs, codes_s, T,
-                              buf_len, layout="direct")
+                              buf_len)
         st1, t1 = ft1.run_block(mk_state(), bre, bim, codes_rows)
 
         mesh = parallel.make_mesh(n_time=1, n_channel=4)
         ftm = fr.FusedTracker(params, cfg, GPS_L1CA, fs, codes_s, T,
-                              buf_len, layout="direct", mesh=mesh)
+                              buf_len, mesh=mesh)
         stm, tm = ftm.run_block(mk_state(), bre, bim, codes_rows)
 
         for f in trk.EpochTelemetry._fields:
@@ -288,10 +288,10 @@ class TestFusedOnMesh:
     def test_run_blocks_on_mesh(self):
         """The multi-block scan composes with the channel-sharded step:
         same results as the unsharded scan."""
-        from gnss_sdr_tpu.config import TrackConfig
-        from gnss_sdr_tpu.models import GPS_L1CA, SatelliteScenario, synthesize
-        from gnss_sdr_tpu.receiver import fused_runner as fr
-        from gnss_sdr_tpu.receiver import tracking as trk
+        from gnss_sdr.config import TrackConfig
+        from gnss_sdr.models import GPS_L1CA, SatelliteScenario, synthesize
+        from gnss_sdr.receiver import fused_runner as fr
+        from gnss_sdr.receiver import tracking as trk
 
         fs = 2_046_000.0
         n0 = GPS_L1CA.samples_per_code(fs)
@@ -319,12 +319,12 @@ class TestFusedOnMesh:
             return st
 
         ft1 = fr.FusedTracker(params, cfg, GPS_L1CA, fs, codes_s, T,
-                              history + block, layout="direct")
+                              history + block)
         st1, t1s = ft1.run_blocks(mk_state(), sre, sim, codes_rows, B)
 
         mesh = parallel.make_mesh(n_time=1, n_channel=4)
         ftm = fr.FusedTracker(params, cfg, GPS_L1CA, fs, codes_s, T,
-                              history + block, layout="direct",
+                              history + block,
                               mesh=mesh)
         stm, tms = ftm.run_blocks(mk_state(), sre, sim, codes_rows, B)
 

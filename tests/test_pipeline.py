@@ -8,10 +8,10 @@ hold), run against the synthetic oracle with known truth.
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, SdrConfig, TrackConfig
-from gnss_sdr_tpu.models import SatelliteScenario
-from gnss_sdr_tpu.receiver import ArraySource, Receiver, SyntheticSource
-from gnss_sdr_tpu.models import synthesize
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, SdrConfig, TrackConfig
+from gnss_sdr.models import SatelliteScenario
+from gnss_sdr.receiver import ArraySource, Receiver, SyntheticSource
+from gnss_sdr.models import synthesize
 
 FS = 4_096_000.0
 
@@ -129,7 +129,7 @@ class TestFrontEndIntegration:
         with a 4.092 MHz IF, front end mixes to baseband and decimates
         4x, receiver tracks at 4.092 MHz (exceeds the reference: its
         resampler was never implemented, frontend.rs:64-66)."""
-        from gnss_sdr_tpu.models import synthesize_real_if_int8
+        from gnss_sdr.models import synthesize_real_if_int8
 
         fs_in, f_if, m = 16_368_000.0, 4_092_000.0, 4
         truth_doppler = -1800.0
@@ -142,7 +142,7 @@ class TestFrontEndIntegration:
         with tempfile.TemporaryDirectory() as d:
             path = os.path.join(d, "cap.bin")
             open(path, "wb").write(raw.tobytes())
-            from gnss_sdr_tpu.receiver import FileSource
+            from gnss_sdr.receiver import FileSource
 
             cfg = ReceiverConfig(
                 rf=RfConfig(
@@ -173,7 +173,7 @@ class TestDeviceStreamWindow:
     like the host StreamWindow; exercised here on the CPU backend."""
 
     def test_parity_with_host_window(self):
-        from gnss_sdr_tpu.receiver.stream import (DeviceStreamWindow,
+        from gnss_sdr.receiver.stream import (DeviceStreamWindow,
                                                   StreamWindow)
 
         rng = np.random.default_rng(5)
@@ -200,7 +200,7 @@ class TestDeviceStreamWindow:
                                       np.asarray(dev.re))
 
     def test_end_of_stream(self):
-        from gnss_sdr_tpu.receiver.stream import DeviceStreamWindow
+        from gnss_sdr.receiver.stream import DeviceStreamWindow
 
         dev = DeviceStreamWindow(8, 16)
         assert dev.advance(None) is None

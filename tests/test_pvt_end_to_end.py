@@ -16,12 +16,12 @@ import os
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu import constants as C
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import SatelliteScenario
-from gnss_sdr_tpu.nav import parse_nav_file, satellite_position, select_ephemerides
-from gnss_sdr_tpu.receiver import Receiver, SyntheticSource
-from gnss_sdr_tpu.receiver.navproc import TimeAnchor
+from gnss_sdr import constants as C
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import SatelliteScenario
+from gnss_sdr.nav import parse_nav_file, satellite_position, select_ephemerides
+from gnss_sdr.receiver import Receiver, SyntheticSource
+from gnss_sdr.receiver.navproc import TimeAnchor
 
 RINEX_PATH = "/root/reference/src/test_data/BRDC00WRD_R_20233330000_01D_GN.rnx"
 FS = 8_184_000.0

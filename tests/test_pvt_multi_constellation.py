@@ -15,17 +15,17 @@ GPS, tests/test_nav_live_multi.py for the other three).
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu import constants as C
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import SatelliteScenario
-from gnss_sdr_tpu.models.constellation import (
+from gnss_sdr import constants as C
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import SatelliteScenario
+from gnss_sdr.models.constellation import (
     BEIDOU_B1I, GALILEO_E1B, GLONASS_L1OF, GPS_L1CA, get_signal,
 )
-from gnss_sdr_tpu.nav.ephemeris import Ephemeris
-from gnss_sdr_tpu.nav.glonass_nav import GlonassEphemeris
-from gnss_sdr_tpu.nav.orbits import satellite_position
-from gnss_sdr_tpu.receiver import MultiConstellationReceiver, SyntheticSource
-from gnss_sdr_tpu.receiver.navproc import TimeAnchor
+from gnss_sdr.nav.ephemeris import Ephemeris
+from gnss_sdr.nav.glonass_nav import GlonassEphemeris
+from gnss_sdr.nav.orbits import satellite_position
+from gnss_sdr.receiver import MultiConstellationReceiver, SyntheticSource
+from gnss_sdr.receiver.navproc import TimeAnchor
 
 FS = 4_092_000.0
 CC = C.SPEED_OF_LIGHT_M_S
@@ -59,7 +59,7 @@ def _kepler_ephemeris(prn, system, pos, radius_m, t_oe=T_REF):
 
     Solves (omega0, u) from the ICD's orbit-plane -> ECEF rotation so
     satellite_position(eph, t_oe) lands on ``pos`` exactly (e=0)."""
-    from gnss_sdr_tpu.nav.orbits import _gm_omega
+    from gnss_sdr.nav.orbits import _gm_omega
 
     _, omega_e = _gm_omega(system)
     g = pos / radius_m

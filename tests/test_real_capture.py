@@ -53,8 +53,8 @@ class TestRealCaptureAcquisition:
     def test_acquired_set_is_subset_of_truth(self, capture_samples):
         """Reference gate (do_acquisition.rs:454): every acquired PRN
         must be in the known visible set."""
-        from gnss_sdr_tpu.models import GPS_L1CA
-        from gnss_sdr_tpu.ops import pcps
+        from gnss_sdr.models import GPS_L1CA
+        from gnss_sdr.ops import pcps
 
         n = GPS_L1CA.samples_per_code(FS)
         x = capture_samples[: 10 * n]
@@ -72,8 +72,8 @@ class TestRealCaptureAcquisition:
             assert abs(got - TRUTH[prn][0]) <= 300.0, f"PRN {prn}"
 
     def test_code_phases_match_truth(self, capture_samples):
-        from gnss_sdr_tpu.models import GPS_L1CA
-        from gnss_sdr_tpu.ops import pcps
+        from gnss_sdr.models import GPS_L1CA
+        from gnss_sdr.ops import pcps
 
         n = GPS_L1CA.samples_per_code(FS)
         x = capture_samples[: 10 * n]
@@ -94,13 +94,13 @@ class TestRealCaptureTracking:
     def test_track_100_epochs(self, capture_samples):
         """Reference gate (do_tracking.rs:725-746): hold lock for 100
         consecutive epochs on the real capture via the full receiver."""
-        from gnss_sdr_tpu.config import (
+        from gnss_sdr.config import (
             AcqConfig,
             ReceiverConfig,
             RfConfig,
             TrackConfig,
         )
-        from gnss_sdr_tpu.receiver import ArraySource, Receiver
+        from gnss_sdr.receiver import ArraySource, Receiver
 
         cfg = ReceiverConfig(
             rf=RfConfig(freq_if_hz=F_IF, output_sample_rate_hz=FS,

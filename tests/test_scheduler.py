@@ -1,7 +1,7 @@
 """Search-scheduler unit tests mirroring the reference's
 AcquisitionManager tests (reference: do_acquisition.rs:339-395)."""
-from gnss_sdr_tpu.config import AcqConfig
-from gnss_sdr_tpu.receiver.acquisition import SearchMode, SearchScheduler
+from gnss_sdr.config import AcqConfig
+from gnss_sdr.receiver.acquisition import SearchMode, SearchScheduler
 
 
 def test_initial_mode_cold():

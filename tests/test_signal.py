@@ -2,14 +2,14 @@
 src/tracking/do_tracking.rs:434-462)."""
 import numpy as np
 
-from gnss_sdr_tpu.models import (
+from gnss_sdr.models import (
     GALILEO_E1B,
     GPS_L1CA,
     SatelliteScenario,
     synthesize,
     synthesize_real_if_int8,
 )
-from gnss_sdr_tpu.models.codes import gps_l1ca
+from gnss_sdr.models.codes import gps_l1ca
 
 
 def test_matches_reference_generator_semantics():

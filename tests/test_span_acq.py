@@ -6,9 +6,9 @@ still be acquired — from the span program's own search output."""
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import SatelliteScenario, synthesize
-from gnss_sdr_tpu.receiver import ArraySource, Receiver
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import SatelliteScenario, synthesize
+from gnss_sdr.receiver import ArraySource, Receiver
 
 FS = 2_046_000.0
 
@@ -42,13 +42,12 @@ class TestInScanAcquisition:
                 rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
                 acq=AcqConfig(engine="conv", steady_threshold=2,
                               steady_pacing=(200, 8)),
-                track=TrackConfig(n_channels=4, correlator="fused",
-                                  fused_layout="mxu"),
+                track=TrackConfig(n_channels=4, correlator="fused"),
                 block_ms=20,
             ),
             ArraySource(sig, FS),
         )
-        assert rx._span_acq, "conv engine + fused layout must arm " \
+        assert rx._span_acq, "conv engine + fused step must arm " \
             "the in-scan search"
         rx.run(scan_blocks=4)
         # the rising satellite was found by the in-scan paced search

@@ -8,9 +8,9 @@ semantic differences are bounded (handoff latency one span, lifecycle
 bookkeeping one span)."""
 import numpy as np
 
-from gnss_sdr_tpu.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
-from gnss_sdr_tpu.models import SatelliteScenario, synthesize
-from gnss_sdr_tpu.receiver import ArraySource, Receiver
+from gnss_sdr.config import AcqConfig, ReceiverConfig, RfConfig, TrackConfig
+from gnss_sdr.models import SatelliteScenario, synthesize
+from gnss_sdr.receiver import ArraySource, Receiver
 
 FS = 2_046_000.0
 
@@ -20,8 +20,7 @@ def _rx(sig, **acq_kw):
         ReceiverConfig(
             rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
             acq=AcqConfig(engine="conv", steady_threshold=2, **acq_kw),
-            track=TrackConfig(n_channels=4, correlator="fused",
-                              fused_layout="mxu"),
+            track=TrackConfig(n_channels=4, correlator="fused"),
             block_ms=20,
         ),
         ArraySource(sig, FS),
@@ -57,7 +56,7 @@ class TestSpanPipeline:
             np.asarray(rx_a.state.active)[:2])
 
     def test_rising_satellite_handoff_through_device_ledger(self):
-        from tests.test_span_acq import _rising_scene
+        from test_span_acq import _rising_scene
 
         sig = _rising_scene()
         rx = _rx(sig, steady_pacing=(200, 8))

@@ -6,7 +6,7 @@ consumer."""
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.receiver import ArraySource, StreamingDeviceSource
+from gnss_sdr.receiver import ArraySource, StreamingDeviceSource
 
 
 def _sig(n, seed=0):
@@ -62,9 +62,9 @@ class TestStreamingDeviceSource:
     def test_receiver_runs_on_streamed_source(self):
         """Full receiver over the streamed source (CPU): same tracking
         outcome as the plain array source."""
-        from gnss_sdr_tpu import ReceiverConfig, RfConfig, TrackConfig
-        from gnss_sdr_tpu.models import SatelliteScenario, synthesize
-        from gnss_sdr_tpu.receiver import Receiver
+        from gnss_sdr import ReceiverConfig, RfConfig, TrackConfig
+        from gnss_sdr.models import SatelliteScenario, synthesize
+        from gnss_sdr.receiver import Receiver
 
         fs = 2_046_000.0
         sig = synthesize([SatelliteScenario(prn=7, doppler_hz=900.0,

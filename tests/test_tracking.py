@@ -9,9 +9,9 @@ never tests.
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import TrackConfig
-from gnss_sdr_tpu.models import GPS_L1CA, SatelliteScenario, synthesize
-from gnss_sdr_tpu.receiver import tracking as trk
+from gnss_sdr.config import TrackConfig
+from gnss_sdr.models import GPS_L1CA, SatelliteScenario, synthesize
+from gnss_sdr.receiver import tracking as trk
 
 FS = 4_096_000.0
 N0 = GPS_L1CA.samples_per_code(FS)  # 4096

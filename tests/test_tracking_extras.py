@@ -3,9 +3,9 @@ capabilities; reference has neither)."""
 import numpy as np
 import pytest
 
-from gnss_sdr_tpu.config import TrackConfig
-from gnss_sdr_tpu.models import GPS_L1CA, SatelliteScenario, synthesize
-from gnss_sdr_tpu.receiver import tracking as trk
+from gnss_sdr.config import TrackConfig
+from gnss_sdr.models import GPS_L1CA, SatelliteScenario, synthesize
+from gnss_sdr.receiver import tracking as trk
 
 FS = 2_048_000.0
 N0 = GPS_L1CA.samples_per_code(FS)
@@ -97,7 +97,7 @@ class TestSliceCorrelator:
     """Gather-free 'slice' correlator (restricted-backend path)."""
 
     def test_tracks_like_shift_path(self):
-        from gnss_sdr_tpu.models import synthesize as synth
+        from gnss_sdr.models import synthesize as synth
 
         fs = 4_096_000.0
         n0 = GPS_L1CA.samples_per_code(fs)
@@ -133,9 +133,9 @@ class TestSliceCorrelator:
         assert pb > 0.85 * pa
 
     def test_receiver_with_slice_correlator(self):
-        from gnss_sdr_tpu.config import ReceiverConfig, RfConfig
-        from gnss_sdr_tpu.models import synthesize as synth
-        from gnss_sdr_tpu.receiver import ArraySource, Receiver
+        from gnss_sdr.config import ReceiverConfig, RfConfig
+        from gnss_sdr.models import synthesize as synth
+        from gnss_sdr.receiver import ArraySource, Receiver
 
         fs = 2_048_000.0
         sig = synth([SatelliteScenario(prn=24, doppler_hz=-1500.0,

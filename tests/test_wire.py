@@ -1,22 +1,21 @@
 """Slim telemetry wire (fused_runner run_blocks wire='slim') vs the
 bit-exact f32 wire.
 
-The steady-state e2e receiver is download-bound over a remote device
-transport (VERDICT round-3 weak #3): the slim wire ships per-epoch
-prompt I/Q as bf16 + packed int8 flags + f32 chip_res, and the
-diagnostic columns (E/L correlators, loop errors, NCO rates) at
-superstep stride. Everything the nav/observables path consumes must
+The slim wire ships per-epoch prompt I/Q as bf16, packed int8 flags,
+int32 epoch starts and indices and f32 chip phase, and the diagnostic
+columns (E/L correlators, loop errors, NCO rates) at a stride. Everything the nav/observables path consumes must
 round-trip exactly or to bf16 tolerance; diagnostic columns follow the
 documented stride-repeat semantics.
 """
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
-from gnss_sdr_tpu.config import TrackConfig
-from gnss_sdr_tpu.models import GPS_L1CA, SatelliteScenario, synthesize
-from gnss_sdr_tpu.receiver import fused_runner as fr
-from gnss_sdr_tpu.receiver import tracking as trk
+from gnss_sdr.config import TrackConfig
+from gnss_sdr.models import GPS_L1CA, SatelliteScenario, synthesize
+from gnss_sdr.receiver import fused_runner as fr
+from gnss_sdr.receiver import tracking as trk
 
 FS = 2_046_000.0
 N0 = GPS_L1CA.samples_per_code(FS)
@@ -50,7 +49,7 @@ def _run_both(C=3, T=20, B=3):
     outs = {}
     for wire in ("f32", "slim"):
         ft = fr.FusedTracker(params, cfg, GPS_L1CA, FS, codes_s, T,
-                             history + block, layout="direct",
+                             history + block,
                              wire=wire)
         st, telems = ft.run_blocks(_mk_state(C), sre, sim,
                                    codes_rows, B)
@@ -126,15 +125,15 @@ class TestSlimWire:
         params = trk.TrackParams.create(cfg, GPS_L1CA, FS)
         codes_s = trk.make_sampled_code_table(GPS_L1CA, FS, 32,
                                               window=params.window)
-        ft = fr.FusedTracker(params, cfg, GPS_L1CA, FS, codes_s, 20,
-                             2 * N0 + 4096 + 20 * N0, layout="direct",
-                             wire="slim2")
-        assert ft.wire == "slim"    # downgraded: no held-rate columns
+        # an unknown wire is an error, not a silent downgrade
+        with pytest.raises(ValueError, match="wire"):
+            fr.FusedTracker(params, cfg, GPS_L1CA, FS, codes_s, 20,
+                            2 * N0 + 4096 + 20 * N0, wire="slim2")
 
     def test_receiver_auto_wire_cpu_is_f32(self):
-        from gnss_sdr_tpu import ReceiverConfig, RfConfig
-        from gnss_sdr_tpu.config import AcqConfig
-        from gnss_sdr_tpu.receiver import Receiver, SyntheticSource
+        from gnss_sdr import ReceiverConfig, RfConfig
+        from gnss_sdr.config import AcqConfig
+        from gnss_sdr.receiver import Receiver, SyntheticSource
 
         src = SyntheticSource(
             [SatelliteScenario(prn=1, doppler_hz=500.0)], FS,

@@ -27,7 +27,7 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 2)
 
-    from gnss_sdr_tpu import parallel
+    from gnss_sdr import parallel
 
     if n_procs > 1:
         assert parallel.initialize_from_env(
@@ -41,8 +41,8 @@ def main() -> None:
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from gnss_sdr_tpu.models import GPS_L1CA, signal
-    from gnss_sdr_tpu.ops import pcps
+    from gnss_sdr.models import GPS_L1CA, signal
+    from gnss_sdr.ops import pcps
 
     fs = 2_046_000.0
     n0 = GPS_L1CA.samples_per_code(fs)

@@ -24,7 +24,7 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 2)
 
-    from gnss_sdr_tpu import parallel
+    from gnss_sdr import parallel
 
     if n_procs > 1:
         assert parallel.initialize_from_env(
@@ -38,9 +38,9 @@ def main() -> None:
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from gnss_sdr_tpu.config import TrackConfig
-    from gnss_sdr_tpu.models import GPS_L1CA
-    from gnss_sdr_tpu.receiver import tracking as trk
+    from gnss_sdr.config import TrackConfig
+    from gnss_sdr.models import GPS_L1CA
+    from gnss_sdr.receiver import tracking as trk
 
     fs = 2_046_000.0
     spec = GPS_L1CA
